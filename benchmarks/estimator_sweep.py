@@ -2,7 +2,7 @@
 
 ORIGINAL vs ERTL_IMPROVED vs ERTL_MLE cardinality RMSE, and
 inclusion-exclusion vs JOINT_MLE Jaccard RMSE, at p in {10, 14, 18},
-against exact ground truth.  Runs on CPU or TPU.
+against exact ground truth.  Runs on the CPU or the GPU.
 
     python benchmarks/estimator_sweep.py [trials]
 """

@@ -1,8 +1,8 @@
 """Phase split of the -J compare tile at the production geometry: stats
 matmuls vs triple assembly/init vs Newton iterations.
 
-Run on TPU:  python benchmarks/jmle_profile.py [n] [p]
-Feeds the decision record in BENCH_NOTES.md (which phase to attack next).
+Run on the GPU:  python benchmarks/jmle_profile.py [n] [p]
+Feeds the decision record in PERF.md (which phase to attack next).
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@
                  (DASHING_TPU_DEVICE_BANK_MB=0)
   unfused      — per-k sketching AND uploads (DASHING_TPU_NO_MULTIK_FUSE=1)
 
-Run ON TPU from /root/repo:  python benchmarks/mkdist_bank_ab.py [reps]
+Run on the GPU from the repo root:  python benchmarks/mkdist_bank_ab.py [reps]
 """
 from __future__ import annotations
 

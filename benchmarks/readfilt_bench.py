@@ -48,27 +48,12 @@ def main(n_reads: int = 16384, read_len: int = 150, p: int = 14, k: int = 21):
     from dashing_tpu.sketch.sparse import level_window_bins
     import functools
 
-    # mirror the CLI's records_joint_triples: packed 2-bit upload + the
-    # fused Pallas encode on TPU, XLA fallback elsewhere
-    from dashing_tpu import pipeline as pl
-    use_packed = (pl._packed_ok(params, sp, p) and width % 8 == 0
-                  and n_reads % 8 == 0)   # Pallas kernel needs rows %8
-    if use_packed:
-        from dashing_tpu.ops.pallas_encode import keys_to_update_inputs
-        packed_np, vbits_np = pl._pack_tile_host(np.asarray(tiles))
-        packed_d, vbits_d = jnp.asarray(packed_np), jnp.asarray(vbits_np)
-
-        @jax.jit
-        def encode(_tiles):
-            keys = pl._packed_to_keys(packed_d, vbits_d, k=sp.k, p=p,
-                                      canon=True, C=width)
-            return keys_to_update_inputs(keys)
-    else:
-        @jax.jit
-        def encode(tiles):
-            h, valid = _tile_to_hashes(tiles, **kw)
-            idx, rank = bucket_rank(h, p)
-            return idx, jnp.where(valid, rank, 0)
+    # mirror the CLI's records_joint_triples encode step
+    @jax.jit
+    def encode(tiles):
+        h, valid = _tile_to_hashes(tiles, **kw)
+        idx, rank = bucket_rank(h, p)
+        return idx, jnp.where(valid, rank, 0)
 
     @functools.partial(jax.jit, static_argnames=("kb",))
     def query(tiles, kb):

@@ -3,7 +3,7 @@
 Localizes where tiled -J wall time goes when it diverges from the
 in-jit tile rate (allpairs_bench.py).
 
-Run on TPU:  python benchmarks/tiled_phase_probe.py [n] [p] [tile] [-J]
+Run on the GPU:  python benchmarks/tiled_phase_probe.py [n] [p] [tile] [-J]
 """
 from __future__ import annotations
 

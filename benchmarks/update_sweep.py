@@ -2,13 +2,13 @@
 
 Benchmarks the HLL register-update stage in isolation on realistic
 mid-stream conditions (registers pre-warmed so min(regs) ~ log2(n/m)),
-then the full fused pipeline (Pallas encode+hash -> update) for the most
-promising variants.
+then the full pipeline (encode+hash -> update) for the most promising
+variants.
 
 Timing rules (CLAUDE.md): loop inside jit with the register carry as the
 cross-iteration dependence; device_get only the final registers.
 
-Run on TPU:  python benchmarks/update_sweep.py [mode]
+Run on the GPU:  python benchmarks/update_sweep.py [mode]
   mode = "update" (default): isolated update variants
   mode = "fused":  full pipeline at the best (row, cap) candidates
 """
@@ -110,11 +110,16 @@ def main_update():
         bench_update(banked, idx, rank, regs0, f"banked scatter B={B}")
 
 
+def _idx_rank(chunk):
+    """ASCII tile -> (bucket idx, rank): the packed sketch path's encode."""
+    from dashing_tpu.ops.encode import base_codes, idx_rank_from_codes
+    code, valid = base_codes(chunk)
+    return idx_rank_from_codes(code, valid, k=K, p=P, canon=True)
+
+
 def main_fused():
     import jax
     import jax.numpy as jnp
-    from dashing_tpu.ops.pallas_encode import (encode_hash_keys,
-                                               keys_to_update_inputs)
     from dashing_tpu.ops.hll_update import update_from_idx_rank
 
     rng = np.random.default_rng(0)
@@ -127,8 +132,7 @@ def main_fused():
         @jax.jit
         def run(chunks, regs, row=row, cap=cap):
             def body(i, regs):
-                keys = encode_hash_keys(chunks[i], k=K, p=P)
-                idx, rank = keys_to_update_inputs(keys)
+                idx, rank = _idx_rank(chunks[i])
                 return update_from_idx_rank(regs, idx, rank, row=row,
                                             cap=cap)
             return jax.lax.fori_loop(0, chunks.shape[0], body, regs)
@@ -190,8 +194,6 @@ def main_roofline():
     into, so the bound is additive, not max)."""
     import jax
     import jax.numpy as jnp
-    from dashing_tpu.ops.pallas_encode import (encode_hash_keys,
-                                               keys_to_update_inputs)
     from dashing_tpu.ops.hll_update import update_from_idx_rank, adaptive_cap, _ROW
 
     rng = np.random.default_rng(0)
@@ -203,8 +205,7 @@ def main_roofline():
     @jax.jit
     def enc_only(chunks):
         def body(i, acc):
-            keys = encode_hash_keys(chunks[i], k=K, p=P)
-            idx, rank = keys_to_update_inputs(keys)
+            idx, rank = _idx_rank(chunks[i])
             return acc + idx.sum() + rank.sum()
         return jax.lax.fori_loop(0, chunks.shape[0], body, jnp.int32(0))
 
@@ -231,8 +232,7 @@ def main_roofline():
     @jax.jit
     def fused(chunks, regs):
         def body(i, regs):
-            keys = encode_hash_keys(chunks[i], k=K, p=P)
-            idx, rank = keys_to_update_inputs(keys)
+            idx, rank = _idx_rank(chunks[i])
             return update_from_idx_rank(regs, idx, rank, cap=cap)
         return jax.lax.fori_loop(0, chunks.shape[0], body, regs)
 

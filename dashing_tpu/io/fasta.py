@@ -3,7 +3,7 @@
 The reference streams records through klib's kseq over gzFile with zstd
 transparently wrapped behind the zlib API (reference Makefile:58-62,
 src/sketch_and_cmp.h:565-570).  Here files are parsed with vectorized numpy
-newline scans, which at TPU feed rates is the pragmatic host-side choice;
+newline scans, which at device feed rates is the pragmatic host-side choice;
 gzip/zstd handled by the stdlib / a gated zstandard import.
 
 Output contract: a list of (name, sequence-bytes) records, or a single flat

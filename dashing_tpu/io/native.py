@@ -101,12 +101,6 @@ def _load() -> Optional[ctypes.CDLL]:
             lib.dtpu_stream_read.restype = ctypes.c_int64
             lib.dtpu_stream_close.argtypes = [ctypes.c_void_p]
             lib.dtpu_stream_close.restype = None
-        if hasattr(lib, "dtpu_pack2bit"):
-            lib.dtpu_pack2bit.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
-                ctypes.POINTER(ctypes.c_uint8)]
-            lib.dtpu_pack2bit.restype = ctypes.c_int
         if hasattr(lib, "dtpu_hk_create"):
             lib.dtpu_hk_create.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_uint64, ctypes.c_double]
@@ -228,28 +222,6 @@ def fmt_nn_rows_iter(vals: np.ndarray, ids: np.ndarray, fmt: int = 0):
                 yield bytes(mv[a:a + int(seg[i])]).decode("ascii")
             r = r1
     return gen()
-
-
-def pack2bit(tile: np.ndarray):
-    """Single-pass native 2-bit pack: (rows, C) ASCII uint8 ->
-    (codes packed 4/byte, validity bits packed 8/byte), byte-identical
-    to pipeline._pack_tile_host_inner.  None when unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "dtpu_pack2bit"):
-        return None
-    rows, C = tile.shape
-    if C % 8 != 0:
-        return None
-    tile = np.ascontiguousarray(tile, np.uint8)
-    packed = np.empty((rows, C // 4), np.uint8)
-    vbits = np.empty((rows, C // 8), np.uint8)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    rc = lib.dtpu_pack2bit(tile.ctypes.data_as(u8p), rows, C,
-                           packed.ctypes.data_as(u8p),
-                           vbits.ctypes.data_as(u8p))
-    if rc != 0:
-        return None
-    return packed, vbits
 
 
 def stream_joined(path: str, sep_len: int, chunk_bytes: int = 4 << 20):

@@ -1,4 +1,4 @@
-"""Vectorized k-mer encoding: the TPU replacement for bonsai's Encoder.
+"""Vectorized k-mer encoding: the device replacement for bonsai's Encoder.
 
 The reference encoder (bonsai/encoder.h, missing submodule; call sites at
 reference src/sketch_and_cmp.h:180-206,296-297,338-352) streams one base at a
@@ -46,8 +46,7 @@ _A, _C, _G, _T = 65, 67, 71, 84  # ASCII, uppercase
 def base_codes(tile: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """ASCII bases (any integer dtype) -> (code in {0..3}, valid bool).
 
-    Codes come back in the input's dtype.  (Pallas kernels pass int32 tiles:
-    Mosaic has no int8 vector compares.)
+    Codes come back in the input's dtype.
     """
     up = tile & 0xDF  # cheap uppercase for ASCII letters
     dt = tile.dtype
@@ -165,8 +164,8 @@ def _pack_doubling(vals: jnp.ndarray, k: int, W: int, reverse: bool) -> U64:
 
 
 def _window_all(valid: jnp.ndarray, k: int, W: int) -> jnp.ndarray:
-    """AND over k-windows by log-doubling (cumsum-free: Pallas/Mosaic has no
-    cumsum lowering, and doubling is the same pass count anyway)."""
+    """AND over k-windows by log-doubling (cumsum-free: doubling is the
+    same pass count as a prefix sum and lowers anywhere)."""
     v = valid
     length = 1
     C = valid.shape[-1]

@@ -15,7 +15,7 @@ combine with jnp.maximum / a max all-reduce.
 
 Two implementations:
   * `update_registers` — XLA scatter-max.  Always correct; the baseline.
-  * `update_registers_matmul` — MXU path: one-hot bucket matrix against a
+  * `update_registers_matmul` — matmul path: one-hot bucket matrix against a
     rank>=level indicator matrix; a bucket's register is the number of
     levels with a nonzero hit count.  Turns the scatter into dense matmuls.
 """
@@ -53,24 +53,23 @@ def update_registers(regs: jnp.ndarray, h: U64, valid: jnp.ndarray, p: int) -> j
     return regs.at[idx.reshape(-1)].max(rank.reshape(-1), mode="drop")
 
 
-_ROW = 2048          # compaction row width (TPU-sweeped: narrow rows at
-                     # constant survivor ratio beat wide ones, 584 vs 556 M/s)
-_CAPR = 64           # default survivor capacity per row
+# Compaction row width and default survivor capacity per row: chosen on
+# the previous target; not tuned for the H100 (ROADMAP S2, S6).
+_ROW = 2048
+_CAPR = 64
 
 
 def adaptive_cap(row: int, m: int, seen: int) -> int:
     """Base survivor capacity for the next chunk given `seen` k-mers
-    already in the m registers.  top_k cost scales with the capacity
-    (round-2 TPU sweep: 1/64 survivor ratio runs ~950 M elem/s vs ~750 at
-    1/32 and ~510 at 1/16 regardless of row width), so shrink the cap as
-    the stream fills the registers.  The expected survivor count per row
-    is row * 2^-min(regs); min(regs) sits a few levels BELOW log2(seen/m)
-    (minimum statistics over 2^p registers — measured: a naive unadjusted
-    seen-based cap overflowed ~every slab and regressed the pipeline
-    578->432 M k-mers/s).  The 4x adjustment is the measured knee: 8x ran
-    706 M k-mers/s, 4x 776 M, 2x 693 M (escalations bite).  Misestimates
-    degrade gracefully: _update_slab escalates overflowing slabs to a
-    4x-cap top_k and only then to the exact full scatter."""
+    already in the m registers.  top_k cost scales with the capacity, so
+    shrink the cap as the stream fills the registers.  The expected
+    survivor count per row is row * 2^-min(regs); min(regs) sits a few
+    levels BELOW log2(seen/m) (minimum statistics over 2^p registers: a
+    naive unadjusted seen-based cap overflows ~every slab), hence the 4x
+    adjustment.  The schedule was chosen on the previous target; not
+    tuned for the H100 (ROADMAP S2, S6).  Misestimates degrade
+    gracefully: _update_slab escalates overflowing slabs to a 4x-cap
+    top_k and only then to the exact full scatter."""
     if seen <= 0:
         return 128
     mean = 4.0 * row * m / seen
@@ -89,11 +88,10 @@ def update_registers_filtered(regs: jnp.ndarray, h: U64, valid: jnp.ndarray,
     Registers only grow, so a hash whose rank is <= min(regs) cannot change
     any register.  After the first chunk of a genome min(regs) is ~
     log2(n/m), so only a ~2^-min fraction of hashes can matter.  Survivors
-    are compacted with a per-row lax.top_k over packed (rank, lane) keys —
-    the one compaction primitive that is actually fast on TPU (measured:
-    whole update 3.5 ms vs 28 ms full scatter for 4.2M hashes) — then
-    scattered.  Exactness: a row's dropped keys all have rank <= its
-    smallest kept rank, so if every row's smallest kept rank is <= the
+    are compacted with a per-row lax.top_k over packed (rank, lane) keys,
+    then scattered (a full scatter of every hash was several times slower
+    on the previous target; not measured on the H100 yet).  Exactness: a
+    row's dropped keys all have rank <= its smallest kept rank, so if every row's smallest kept rank is <= the
     threshold nothing filterable was lost; otherwise (e.g. a fresh sketch,
     min(regs)=0) fall back to the full scatter.
     """
@@ -104,9 +102,9 @@ def update_registers_filtered(regs: jnp.ndarray, h: U64, valid: jnp.ndarray,
 
 # Threshold-refresh granularity: within one update call, the filter
 # threshold min(regs) is recomputed every _BLOCK_ROWS compaction rows
-# (TPU-sweeped: per-dispatch threshold at 256-row tiles ran 519 M k-mers/s,
-# 128-row 548 M/s; in-jit refresh gets the small-block threshold without
-# the extra dispatches).
+# (in-jit refresh gets the small-block threshold without extra
+# dispatches).  Chosen on the previous target; not tuned for the H100
+# (ROADMAP S2, S6).
 _BLOCK_ROWS = 128
 
 
@@ -200,13 +198,13 @@ def update_from_idx_rank(regs: jnp.ndarray, idx: jnp.ndarray,
 @functools.partial(jax.jit, static_argnames=("p", "max_rank"))
 def update_registers_matmul(regs: jnp.ndarray, h: U64, valid: jnp.ndarray,
                             p: int, max_rank: int = 40) -> jnp.ndarray:
-    """MXU path.  counts[j, r] = #hashes in bucket j with rank >= r computed
+    """Matmul path.  counts[j, r] = #hashes in bucket j with rank >= r computed
     as onehot(idx)^T @ indicator(rank >= r); register = #levels with count>0.
 
     Ranks above `max_rank` occur with probability 2^-max_rank per k-mer; they
     are clamped, which for max_rank=40 changes an estimate only beyond ~1e12
     distinct elements per bucket.  Accuracy-critical callers use the scatter
-    path; this one exists for raw throughput on MXU-rich chips.
+    path; this one trades the scatter for dense matrix products.
     """
     m = regs.shape[0]
     idx, rank = bucket_rank(h, p)

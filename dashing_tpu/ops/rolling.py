@@ -7,7 +7,7 @@ missing bonsai submodule; both are linear over GF(2):
 
     hash(window) = XOR_t  rotl64( table[base_t], (k-1-t) mod 64 )
 
-so instead of rolling state base-by-base (sequential, TPU-hostile), each
+so instead of rolling state base-by-base (sequential, accelerator-hostile), each
 window's hash is a windowed XOR of position-rotated per-base constants —
 the same shift-or structure as the exact encoder, fully vectorized.
 

@@ -22,10 +22,17 @@ from typing import List, Sequence
 import numpy as np
 
 
+_INITIALIZED = False
+
+
 def maybe_initialize() -> bool:
-    """Initialize jax.distributed when DASHING_TPU_DISTRIBUTED is set."""
+    """Initialize jax.distributed when DASHING_TPU_DISTRIBUTED is set —
+    once per process, so several CLI commands can run in one process."""
+    global _INITIALIZED
     if os.environ.get("DASHING_TPU_DISTRIBUTED", "") in ("", "0"):
         return False
+    if _INITIALIZED:
+        return True
     import jax
     coord = os.environ.get("JAX_COORDINATOR")
     nproc = os.environ.get("JAX_NUM_PROCESSES")
@@ -39,6 +46,7 @@ def maybe_initialize() -> bool:
         kwargs = dict(coordinator_address=coord,
                       num_processes=int(nproc), process_id=int(pid))
     jax.distributed.initialize(**kwargs)
+    _INITIALIZED = True
     return True
 
 
@@ -74,7 +82,7 @@ def my_shard(items: Sequence, strided: bool = True) -> List:
 
 def global_register_max(regs: np.ndarray) -> np.ndarray:
     """Merge per-process registers with a cross-process max all-reduce
-    (the multi-host extension of the ICI merge in parallel/mesh.py)."""
+    (the multi-host extension of the mesh merge in parallel/mesh.py)."""
     import jax
     import jax.numpy as jnp
     if jax.process_count() == 1:

@@ -4,14 +4,14 @@ The reference is single-node OpenMP (SURVEY.md sec 2.4); its parallel
 structures map onto a jax.sharding.Mesh as:
 
   P1 file-level OMP loop        -> data-parallel rows over mesh axis 'd'
-  P4 union merge tree           -> elementwise-max all-reduce (lax.pmax over
-     (reference src/union.cpp:11-24)  ICI) — register max is associative
+  P4 union merge tree           -> elementwise-max all-reduce (lax.pmax)
+     (reference src/union.cpp:11-24)  — register max is associative
   P3 pairwise OMP loops         -> 2-D sharded tile grid ('i' rows, 'j' cols)
      (reference src/sketch_and_cmp.h:704-706)
 
 Because every sketch merge is an elementwise max and the distance grid is
-embarrassingly tileable, no other collective is needed; scaling is linear in
-chips up to HBM/ICI limits.
+embarrassingly tileable, no other collective is needed.  The mesh follows
+the algorithm: every device of a host reaches every other at the same rate.
 """
 from __future__ import annotations
 
@@ -92,7 +92,7 @@ def sharded_sketch_step(mesh: Mesh, *, k: int, p: int, canon: bool = True):
     (m,) int32 registers (per-device partial update + max all-reduce).
 
     This is the 'sequence parallel' analog for sketching: one genome's tiles
-    spread across chips, merged by a register-max collective over ICI.
+    spread across devices, merged by a register-max collective.
     """
     sp_positions = tuple(range(k))
 
@@ -105,12 +105,9 @@ def sharded_sketch_step(mesh: Mesh, *, k: int, p: int, canon: bool = True):
         upd = regs.at[idx.reshape(-1)].max(rank.reshape(-1), mode="drop")
         return jax.lax.pmax(upd, "d")
 
-    # check_vma=False across these entry points: the varying-mesh-axes
-    # checker rejects pallas_call outputs, and the compare/encode bodies
-    # invoke the fused kernels per-shard on TPU meshes
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P("d", None), P()),
-                   out_specs=P(), check_vma=False)
+                   out_specs=P())
     return jax.jit(fn)
 
 
@@ -120,7 +117,7 @@ def sharded_pair_tile(mesh: Mesh, *, p: int, kmax: int, result_type: int,
     by rows on 'i' for A and on 'j' for B; output (n, n) sharded ('i', 'j').
 
     Each device computes its (n/i_dev, n/j_dev) block of the measure matrix
-    locally — the TPU-native replacement for dm::parallel_fill
+    locally — the multi-device replacement for dm::parallel_fill
     (reference distmat/distmat.h:459-512).
     """
     def local(a_regs, b_regs):
@@ -131,7 +128,7 @@ def sharded_pair_tile(mesh: Mesh, *, p: int, kmax: int, result_type: int,
 
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P("i", None), P("j", None)),
-                   out_specs=P("i", "j"), check_vma=False)
+                   out_specs=P("i", "j"))
     return jax.jit(fn)
 
 
@@ -143,7 +140,7 @@ def sharded_union(mesh: Mesh):
         return jax.lax.pmax(regs.max(axis=0), "d")
 
     fn = shard_map(local, mesh=mesh, in_specs=(P("d", None),),
-                   out_specs=P(), check_vma=False)
+                   out_specs=P())
     return jax.jit(fn)
 
 

@@ -16,7 +16,7 @@ bulk ops:
       shared membership by searchsorted)
 
 WideHLL is not here: it shares HLL register semantics, so the CLI routes
-it through the MXU engine (ops/pairwise.py) directly.
+it through the matmul engine (ops/pairwise.py) directly.
 
 Every function returns (na, nb, 3) float64 with [i, j] =
 A[i].full_set_comparison(B[j]); dispatch via batch_triples -> None for

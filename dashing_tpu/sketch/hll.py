@@ -39,7 +39,7 @@ class HLL:
     """HyperLogLog sketch with Ertl estimators.
 
     Registers live as a host numpy uint8 array; device ops take/return
-    int32 register arrays (uint8 is tile-hostile on TPU).
+    int32 register arrays.
     """
 
     def __init__(self, p: int, estim: int = est.ERTL_MLE,

@@ -1,6 +1,6 @@
 """Sparse HLL queries: tiny sketches vs a dense reference, without 2^p work.
 
-TPU-native rebuild of the reference's sparse read-filtering path
+Device rebuild of the reference's sparse read-filtering path
 (sparse::SparseHLL + sparse::pair_query, used at reference
 src/readfilt.cpp:68-76,102-110): a short read occupies only ~L of the
 reference sketch's 2^p buckets, so its joint-MLE sufficient statistics can
@@ -46,7 +46,9 @@ from .hll import HLL
 
 def _onehot_accum(bins: jnp.ndarray, delta: jnp.ndarray, nbins: int
                   ) -> jnp.ndarray:
-    """(B, L) bins x (B, L) deltas -> (B, nbins) sums (einsum, MXU-friendly)."""
+    """(B, L) bins x (B, L) deltas -> (B, nbins) sums as one einsum.  The
+    operands are 0/1 and 0/+-1, exact even where an f32 matmul runs in
+    TF32, and the sums accumulate in f32 (exact below 2^24)."""
     oh = (bins[..., None] == jnp.arange(nbins, dtype=bins.dtype))
     return jnp.einsum("blc,bl->bc", oh.astype(jnp.float32),
                       delta.astype(jnp.float32))
@@ -212,7 +214,7 @@ class SparseHLL:
             raise ValueError("precision mismatch")
         hist = ref.histogram() if ref_hist is None else ref_hist
         # pad to the next power of two: sparse_joint_triples is shape-jitted
-        # and TPU compiles are expensive, so bound the compiled-shape count
+        # and device compiles are expensive, so bound the compiled-shape count
         L = 8
         while L < len(self.idx):
             L *= 2

@@ -1,10 +1,10 @@
 """uint64 arithmetic on (hi, lo) uint32 pairs.
 
-TPUs have no native 64-bit integer units; XLA emulates s64/u64 and Pallas does
-not support them at all.  Everything 64-bit in this framework (k-mer codes,
-hashes, HLL bucket/rank slicing) therefore runs on explicit uint32 pairs,
-which map 1:1 onto VPU lanes.  All functions are shape-polymorphic and work
-under jit/vmap and inside Pallas kernels.
+Everything 64-bit in this framework (k-mer codes, hashes, HLL bucket/rank
+slicing) runs on explicit uint32 pairs: 32-bit integer lanes are native on
+every accelerator JAX targets, while 64-bit integer support varies.  All
+functions are shape-polymorphic and work under jit/vmap and inside Pallas
+kernels.
 
 A "u64" here is simply a tuple (hi, lo) of equal-shaped jnp.uint32 arrays.
 """

@@ -1,7 +1,7 @@
 // Native FASTA/FASTQ loader for dashing_tpu.
 //
 // The reference's sequence layer is C (klib kseq over gzFile; see reference
-// Makefile:58-65 and src/sketch_and_cmp.h:565-570).  This is its TPU-host
+// Makefile:58-65 and src/sketch_and_cmp.h:565-570).  This is its device-host
 // equivalent: parse a (possibly gzip-compressed) FASTA/FASTQ file into ONE
 // contiguous byte buffer with records joined by `sep_len` zero bytes —
 // exactly the layout dashing_tpu.ops.encode.join_records produces — plus a

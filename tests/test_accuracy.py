@@ -105,14 +105,13 @@ def test_jmle_trajectory_degradation_bounded():
 
         def logl(theta):
             return jax.vmap(
-                lambda t, s: est._joint_logl(t, s, m, q, kmin, False),
+                lambda t, s: est._joint_logl(t, s, m, q, kmin),
                 in_axes=(1, 0))(theta, sN)
 
         def body(carry, _):
             t = carry
             g, H = jax.vmap(
-                lambda tt, s: est._joint_grad_hess(tt, s, m, q, kmin,
-                                                   False),
+                lambda tt, s: est._joint_grad_hess(tt, s, m, q, kmin),
                 in_axes=(1, 0), out_axes=(1, 2))(t, sN)
             H = jnp.stack([
                 jnp.stack([H[0, 0] - 1e-4, H[0, 1], H[0, 2]]),

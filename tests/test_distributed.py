@@ -37,7 +37,6 @@ def _run_procs(args, tmp_path, nprocs, timeout=240, extra_env=None):
             PYTHONPATH=REPO,
             DASHING_TPU_PLATFORM="cpu",
             DASHING_TPU_DISTRIBUTED="1",
-            DASHING_TPU_NO_PALLAS="1",
             JAX_COORDINATOR=f"127.0.0.1:{port}",
             JAX_NUM_PROCESSES=str(nprocs),
             JAX_PROCESS_ID=str(rank),
@@ -73,8 +72,7 @@ def _run_pair(args, tmp_path, timeout=240, extra_env=None):
 
 def _run_single(args, tmp_path, timeout=240, extra_env=None):
     env = dict(os.environ)
-    env.update(PYTHONPATH=REPO, DASHING_TPU_PLATFORM="cpu",
-               DASHING_TPU_NO_PALLAS="1")
+    env.update(PYTHONPATH=REPO, DASHING_TPU_PLATFORM="cpu")
     env.update(extra_env or {})
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-m", "dashing_tpu.cli"] + args,

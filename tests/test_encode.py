@@ -221,3 +221,24 @@ def test_spaced_entropy_window_matches_oracle(rng):
     want = np.sort(np.array(want, np.uint64))
     assert got.shape == want.shape
     assert (got == want).all()
+
+
+@pytest.mark.parametrize("p", [10, 14])
+@pytest.mark.parametrize("k", [15, 21, 31])
+def test_sketch_file_registers_match_host_pipeline(tmp_path, k, p):
+    """End-to-end device sketch of a FASTA file (one record, N runs,
+    lowercase, a width that is not a tile multiple) equals an independent
+    host numpy encode -> wang_hash_np -> HLL.addh_np bitwise."""
+    import os
+    import sys
+    from dashing_tpu import pipeline
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    rng = np.random.default_rng(k * 100 + p)
+    seq = rng.choice(np.frombuffer(b"ACGT" * 8 + b"acgtN", np.uint8),
+                     size=50_000 + k)
+    path = str(tmp_path / "g.fa")
+    chip_smoke.write_fasta(path, "g", seq)
+    got = pipeline.sketch_file_hll(path, pipeline.SketchParams(k=k), p)
+    np.testing.assert_array_equal(got, chip_smoke.host_registers(path, k, p))

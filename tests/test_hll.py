@@ -261,21 +261,6 @@ def test_joint_grad_hess_match_finite_differences(rng):
         g_num = (float(v1) - float(v0)) / (2 * eps)
         assert abs(float(g[i]) - g_num) < max(0.05 * abs(g_num), 2.0), (i, float(g[i]), g_num)
     assert (np.diag(np.asarray(H)) < 0).all()
-    # the value-FREE chain twin (the strategy the fused KERNEL runs,
-    # complement-chain evaluation) must satisfy the same oracle directly
-    gc, Hc = est._joint_grad_hess_chain(jnp.asarray(th32), stats, m, q,
-                                        kfirst=False)
-    assert np.isfinite(np.asarray(gc)).all()
-    assert np.isfinite(np.asarray(Hc)).all()
-    for i in range(3):
-        e = np.zeros(3, np.float32)
-        e[i] = eps
-        v1, _, _ = est._joint_val_grad_hess(jnp.asarray(th32 + e), stats, m, q)
-        v0, _, _ = est._joint_val_grad_hess(jnp.asarray(th32 - e), stats, m, q)
-        g_num = (float(v1) - float(v0)) / (2 * eps)
-        assert abs(float(gc[i]) - g_num) < max(0.05 * abs(g_num), 2.0), (
-            i, float(gc[i]), g_num)
-    assert (np.diag(np.asarray(Hc)) < 0).all()
 
 
 def test_joint_mle_improves_likelihood(rng):
@@ -337,14 +322,7 @@ def test_grad_hess_twins_agree(rng):
     """The XLA Newton loop runs the value-FREE _joint_grad_hess; the
     float64 finite-difference oracle validates the val-bearing twin.
     Pin them together bitwise so an edit to the load-bearing analytic
-    Hessian applied to one twin fails loudly.  The KERNEL path's
-    complement-chain strategy (_joint_grad_hess_chain) computes the
-    same quantities through exact identities (e^{-c 2z} = (e^{-cz})^2,
-    1 - g^2 = (1-g)(1+g)); it is pinned in FLOAT64, where an algebra
-    error shows at >=1e-3 while the reformulation's rounding sits at
-    ~1e-9 (in f32 the two are inseparable at off-optimum theta; f32
-    trajectory noise is covered by the end-to-end accuracy tests)."""
-    import jax
+    Hessian applied to one twin fails loudly."""
     import jax.numpy as jnp
     from dashing_tpu.sketch import estimators as est
     p = 12
@@ -362,109 +340,5 @@ def test_grad_hess_twins_agree(rng):
         g, H = est._joint_grad_hess(th, stats32, m, q)
         np.testing.assert_array_equal(np.asarray(g), np.asarray(g_val))
         np.testing.assert_array_equal(np.asarray(H), np.asarray(H_val))
-    with jax.enable_x64():
-        stats = {k: jnp.asarray(np.asarray(v), jnp.float64)
-                 for k, v in stats32.items()}
-        for theta in ([10.0, 9.5, 8.0], [2.0, 12.0, 1.0], [7.7, 7.7, 7.7]):
-            th = jnp.asarray(theta, jnp.float64)
-            _, g_val, H_val = est._joint_val_grad_hess(th, stats, m, q)
-            g, H = est._joint_grad_hess_chain(th, stats, m, q,
-                                              kfirst=False)
-            gs = float(np.abs(np.asarray(g_val)).max())
-            hs = float(np.abs(np.asarray(H_val)).max())
-            np.testing.assert_allclose(np.asarray(g), np.asarray(g_val),
-                                       atol=1e-6 * max(gs, 1.0), rtol=1e-6)
-            np.testing.assert_allclose(np.asarray(H), np.asarray(H_val),
-                                       atol=1e-6 * max(hs, 1.0), rtol=1e-6)
 
 
-def test_logl_chain_matches_direct(rng):
-    """The kernel's likelihood-guard chain (_joint_logl_chain, K-first)
-    must match the direct _joint_logl in float64 — same f64-separates-
-    algebra-from-rounding rationale as the grad/Hessian twins pin.
-    The chain assumes pair-shaped theta (as in the kernel), so theta
-    carries explicit (1, 1) batch dims here."""
-    import jax
-    import jax.numpy as jnp
-    from dashing_tpu.sketch import estimators as est
-    p = 12
-    q = 64 - p
-    a = HLL(p)
-    a.addh_np(rng.integers(0, 2**62, 40_000, dtype=np.uint64))
-    b = HLL(p)
-    b.addh_np(rng.integers(0, 2**62, 25_000, dtype=np.uint64))
-    stats32 = est.pair_statistics(jnp.asarray(a.regs.astype(np.int32)),
-                                  jnp.asarray(b.regs.astype(np.int32)), q)
-    m = float(1 << p)
-    with jax.enable_x64():
-        st_last = {k: jnp.asarray(np.asarray(v), jnp.float64)
-                   for k, v in stats32.items()}
-        st_first = {k: v[:, None, None] for k, v in st_last.items()}
-        for theta in ([10.0, 9.5, 8.0], [2.0, 12.0, 1.0],
-                      [7.7, 7.7, 7.7]):
-            th = jnp.asarray(theta, jnp.float64)
-            want = float(est._joint_logl(th, st_last, m, q, 0, False))
-            got = float(np.asarray(est._joint_logl(
-                th[:, None, None], st_first, m, q, 0, True))[0, 0])
-            assert abs(got - want) <= 1e-6 * max(abs(want), 1.0), (
-                theta, got, want)
-
-
-def test_chain_windowed_matches_direct(rng):
-    """The all-pairs engine always calls the chain evaluators with
-    per-tile level WINDOWS — the bin-edge handling (c_lo = max(kmin-1,0),
-    the kmax==q+1 top-bin rewiring, the lo>hi degenerate branch) is
-    exactly where the chain and direct forms could drift, so pin
-    chain-vs-direct in f64 on windowed slices, not just the kmin=0 full
-    histogram the twins tests above use.  Both evaluators consume the
-    SAME sliced histograms, so agreement is required whether or not the
-    window captures every register."""
-    import jax
-    import jax.numpy as jnp
-    from dashing_tpu.sketch import estimators as est
-    p = 12
-    q = 64 - p
-    a = HLL(p)
-    a.addh_np(rng.integers(0, 2**62, 40_000, dtype=np.uint64))
-    b = HLL(p)
-    b.addh_np(rng.integers(0, 2**62, 25_000, dtype=np.uint64))
-    stats32 = est.pair_statistics(jnp.asarray(a.regs.astype(np.int32)),
-                                  jnp.asarray(b.regs.astype(np.int32)), q)
-    m = float(1 << p)
-    windows = [
-        (3, 19),        # interior: no bin-0, no top-bin
-        (1, q),         # full minus the two special bins
-        (5, q + 1),     # top-bin rewiring (kmax == q+1 reads level q)
-        (0, 5),         # bin-0 without top
-        (9, 9),         # single interior level (K = 1)
-        (0, 0),         # degenerate lo > hi: only the zero bin
-        (q + 1, q + 1),  # degenerate lo > hi: only the saturated bin
-    ]
-    with jax.enable_x64():
-        st64 = {k: jnp.asarray(np.asarray(v), jnp.float64)
-                for k, v in stats32.items()}
-        for kmin, kmax in windows:
-            stw = {k: v[..., kmin:kmax + 1] for k, v in st64.items()}
-            stw_first = {k: v[:, None, None] for k, v in stw.items()}
-            for theta in ([10.0, 9.5, 8.0], [2.0, 12.0, 1.0]):
-                th = jnp.asarray(theta, jnp.float64)
-                _, g_val, H_val = est._joint_val_grad_hess(
-                    th, stw, m, q, kmin)
-                g, H = est._joint_grad_hess_chain(th, stw, m, q, kmin,
-                                                  kfirst=False)
-                gs = float(np.abs(np.asarray(g_val)).max())
-                hs = float(np.abs(np.asarray(H_val)).max())
-                np.testing.assert_allclose(
-                    np.asarray(g), np.asarray(g_val),
-                    atol=1e-6 * max(gs, 1.0), rtol=1e-6,
-                    err_msg=f"grad window {(kmin, kmax)} theta {theta}")
-                np.testing.assert_allclose(
-                    np.asarray(H), np.asarray(H_val),
-                    atol=1e-6 * max(hs, 1.0), rtol=1e-6,
-                    err_msg=f"hess window {(kmin, kmax)} theta {theta}")
-                # likelihood guard: K-first chain vs K-last direct
-                want = float(est._joint_logl(th, stw, m, q, kmin, False))
-                got = float(np.asarray(est._joint_logl(
-                    th[:, None, None], stw_first, m, q, kmin, True))[0, 0])
-                assert abs(got - want) <= 1e-6 * max(abs(want), 1.0), (
-                    (kmin, kmax), theta, got, want)

@@ -9,6 +9,7 @@ import contextlib
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -81,12 +82,11 @@ def test_pmax_batching_reduces_collectives(tmp_path, rng, monkeypatch):
     is one all-reduce where the default pays one per chunk)."""
     params = pipeline.SketchParams(k=21)
     # 9 synthetic (64, C) tiles fed straight to the chunk stream: rows
-    # divisible by 8*D, so every tile takes the sharded fused path
+    # divisible by D, so every tile takes the sharded banks path
     bases = np.frombuffer(b"ACGT", np.uint8)
     tiles = [rng.choice(bases, size=(64, 2048 + 20)) for _ in range(9)]
     counts = {"merge": 0, "chunks": 0}
     orig_pmax, orig_merge = pipeline._banks_pmax, pipeline._banks_merge
-    orig_banks_step = pipeline._sharded_packed_step_banks
 
     def count_calls(orig, key):
         def outer(*a, **kw):
@@ -102,8 +102,6 @@ def test_pmax_batching_reduces_collectives(tmp_path, rng, monkeypatch):
                         count_calls(orig_pmax, "merge"))
     monkeypatch.setattr(pipeline, "_banks_merge",
                         count_calls(orig_merge, "merge"))
-    monkeypatch.setattr(pipeline, "_sharded_packed_step_banks",
-                        count_calls(orig_banks_step, "chunks"))
     monkeypatch.setattr(pipeline, "_sharded_ascii_step_banks",
                         count_calls(pipeline._sharded_ascii_step_banks,
                                     "chunks"))
@@ -118,20 +116,22 @@ def test_pmax_batching_reduces_collectives(tmp_path, rng, monkeypatch):
 def test_sharded_sketch_is_actually_sharded(tmp_path, rng, monkeypatch):
     """The sharded chunk step must see tile rows split over 'd'."""
     calls = {}
-    orig = pipeline._sharded_ascii_step
 
-    def spy(mesh, kw_items, p, *a, **kw):
-        fn = orig(mesh, kw_items, p, *a, **kw)
+    def spy(orig):
+        def make(mesh, *a, **kw):
+            fn = orig(mesh, *a, **kw)
 
-        def wrapped(tile, regs):
-            out = fn(tile, regs)
-            calls["n"] = calls.get("n", 0) + 1
-            calls["sharding"] = out.sharding
-            return out
-        return wrapped
+            def wrapped(*args):
+                out = fn(*args)
+                calls["n"] = calls.get("n", 0) + 1
+                calls["sharding"] = out.sharding
+                return out
+            return wrapped
+        return make
 
-    # lru_cache on the original: patch the lookup site instead
-    monkeypatch.setattr(pipeline, "_sharded_ascii_step", spy)
+    # lru_cache on the originals: patch the lookup sites instead
+    monkeypatch.setattr(pipeline, "_sharded_ascii_step",
+                        spy(pipeline._sharded_ascii_step))
     path = _write_genome(tmp_path, rng, "g.fa", 400_000)
     params = pipeline.SketchParams(k=21, rehash=True)
     _ = pipeline.sketch_file_hll(path, params, 12)
@@ -142,8 +142,10 @@ def test_sharded_sketch_is_actually_sharded(tmp_path, rng, monkeypatch):
 
 @pytest.mark.parametrize("jestim", [est.ERTL_MLE, est.ERTL_JOINT_MLE])
 def test_sharded_compare_bitwise_and_sharded(rng, jestim):
+    """Compare tiles spread round robin over the mesh devices, each tile
+    bitwise equal to the single-device result."""
     p = 11
-    n = 37          # odd: forces row padding over the 8-way mesh
+    n = 37
     sketches = []
     for i in range(n):
         h = HLL(p)
@@ -151,17 +153,19 @@ def test_sharded_compare_bitwise_and_sharded(rng, jestim):
         sketches.append(h)
     regs = np.stack([s.regs for s in sketches]).astype(np.int32)
     kmin, kmax = int(regs.min()), int(regs.max()) + 1
-    dev = pw.compare_tile_async(regs, regs, p, pw.JI, 1.0 / 21,
-                                est.ERTL_MLE, jestim, kmax, kmin)
-    # sharded over all 8 devices before the host pulls it
-    assert len(dev.sharding.device_set) == 8
-    got = np.asarray(dev)
-    assert got.shape == (n, n)
+    devs = [pw.compare_tile_async(regs, regs, p, pw.JI, 1.0 / 21,
+                                  est.ERTL_MLE, jestim, kmax, kmin, slot=s)
+            for s in range(3)]
+    placed = [next(iter(d.sharding.device_set)) for d in devs]
+    mesh = pmesh.local_mesh()
+    assert placed == list(mesh.devices.flat[:3])
     with mesh_disabled():
         want = np.asarray(pw.compare_tile_async(
             regs, regs, p, pw.JI, 1.0 / 21, est.ERTL_MLE, jestim,
             kmax, kmin))
-    np.testing.assert_array_equal(got, want)
+    assert want.shape == (n, n)
+    for d in devs:
+        np.testing.assert_array_equal(np.asarray(d), want)
 
 
 def test_cli_dist_output_bytes_identical(tmp_path, rng, capsys):
@@ -250,46 +254,3 @@ def test_cli_panel_mesh_identical(tmp_path, rng, capsys):
     m = open(out_m).read()
     assert open(out_s).read() == m
     assert "p1.fa" in m          # best match is the source genome
-
-
-@pytest.mark.parametrize("family", ["jmle", "mle"])
-def test_sharded_compare_composes_with_pallas_kernels(rng, family):
-    """On real multi-chip TPU the production compare tile runs the fused
-    estimator kernels PER SHARD (pallas_call inside shard_map via
-    _sharded_compare_fn -> triples_from_stats).  No local hardware has >1
-    TPU chip, so pin the composition — tracing AND semantics — on the
-    8-device CPU mesh with interpret-mode kernels: the sharded+kernel
-    output must match the sharded kernels-off path.  jit caches are
-    cleared around the env flips because the flags are read at trace
-    time."""
-    var = ("DASHING_TPU_PALLAS_JMLE" if family == "jmle"
-           else "DASHING_TPU_PALLAS_MLE")
-    p, m = 8, 1 << 8
-    regs_a = rng.integers(2, 14, size=(32, m)).astype(np.int32)
-    regs_b = rng.integers(2, 14, size=(24, m)).astype(np.int32)
-    jestim = est.ERTL_JOINT_MLE if family == "jmle" else est.ERTL_MLE
-    kmax = int(max(regs_a.max(), regs_b.max())) + 1
-    kmin = int(min(regs_a.min(), regs_b.min()))
-    assert pmesh.local_mesh() is not None
-
-    def run():
-        out = pw.compare_tile_async(regs_a, regs_b, p, pw.JI, 1.0 / 21,
-                                    est.ERTL_MLE, jestim, kmax, kmin)
-        return np.asarray(out)
-
-    saved = os.environ.get(var)
-    try:
-        os.environ[var] = "0"
-        jax.clear_caches()
-        want = run()
-        os.environ[var] = "interpret"
-        jax.clear_caches()
-        got = run()
-    finally:
-        if saved is None:
-            os.environ.pop(var, None)
-        else:
-            os.environ[var] = saved
-        jax.clear_caches()
-    assert got.shape == want.shape == (32, 24)
-    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)

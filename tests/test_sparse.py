@@ -1,6 +1,6 @@
 """SparseHLL: sparse-vs-dense queries must match the dense joint MLE.
 
-Covers the TPU rebuild of sparse::pair_query (reference
+Covers the device rebuild of sparse::pair_query (reference
 src/readfilt.cpp:68-76,102-110): the histogram-correction statistics must
 equal the ones computed from materialized dense registers, bin for bin.
 """

@@ -185,25 +185,6 @@ def test_stream_malformed_raises(tmp_path):
         list(fasta.stream_joined(path, 5))
 
 
-def test_native_pack2bit_identity(rng):
-    """native/pack.cpp must match pipeline._pack_tile_host_inner
-    byte-for-byte over the full byte range (it feeds the packed device
-    upload path, so a single bit of drift changes sketches)."""
-    from dashing_tpu.pipeline import _pack_tile_host_inner
-    if native.pack2bit(np.zeros((1, 8), np.uint8)) is None:
-        pytest.skip("native library unavailable")
-    for trial in range(10):
-        rows = int(rng.integers(1, 40))
-        C = 8 * int(rng.integers(1, 120))
-        tile = (rng.integers(0, 256, (rows, C), dtype=np.uint8)
-                if trial % 2 else
-                rng.choice(np.frombuffer(b"ACGTNacgtn\x00", np.uint8),
-                           size=(rows, C)))
-        a = _pack_tile_host_inner(tile)
-        b = native.pack2bit(tile)
-        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
-
-
 def test_iter_records_full_matches_batch(tmp_path):
     """The lazy record iterator behind readfilt/sketch_by_seq must yield
     the same (name, comment, seq, qual) tuples as read_records_full."""
